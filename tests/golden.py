@@ -9,8 +9,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from tinyslam_tpu.ops.brief import BRIEF_PATTERN
-from tinyslam_tpu.ops.fast import RING16
+from tinyslam.ops.brief import BRIEF_PATTERN
+from tinyslam.ops.fast import RING16
 
 
 def streak16_naive(x: int, n: int = 12) -> bool:

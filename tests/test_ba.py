@@ -1,14 +1,14 @@
 import numpy as np
 import jax.numpy as jnp
 
-from tinyslam_tpu.backend.ba import bundle_adjust
-from tinyslam_tpu.data.synthetic import (
+from tinyslam.backend.ba import bundle_adjust
+from tinyslam.data.synthetic import (
     default_camera,
     orbit_trajectory,
     project_points,
     random_points,
 )
-from tinyslam_tpu.geometry.se3 import se3_compose, se3_exp
+from tinyslam.geometry.se3 import se3_compose, se3_exp
 
 
 def _window_problem(rng, K=8, L=300, noise_px=0.5, drop=0.2):

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from tinyslam_tpu.ops.brief import BRIEF_PATTERN, brief_descriptors
+from tinyslam.ops.brief import BRIEF_PATTERN, brief_descriptors
 from tests.golden import brief_naive
 
 
@@ -14,10 +14,10 @@ def test_pattern_properties():
     # learned table (falls back to the deterministic Gaussian pattern).
     import importlib
 
-    import tinyslam_tpu.ops.brief as B
+    import tinyslam.ops.brief as B
 
     np.testing.assert_array_equal(BRIEF_PATTERN, importlib.reload(B).BRIEF_PATTERN)
-    from tinyslam_tpu.ops.brief import RANDOM_PATTERN, _make_pattern
+    from tinyslam.ops.brief import RANDOM_PATTERN, _make_pattern
 
     np.testing.assert_array_equal(RANDOM_PATTERN, _make_pattern())
 
@@ -51,7 +51,7 @@ def test_brief_rotation_steers_descriptor():
     the descriptor approximately invariant (the point of steered BRIEF)."""
     rng = np.random.default_rng(4)
     # Smooth random image (blur noise) so nearest-sampling artifacts are small.
-    from tinyslam_tpu.ops.image import gaussian_blur
+    from tinyslam.ops.image import gaussian_blur
 
     base = rng.random((96, 96)).astype(np.float32)
     img = np.asarray(gaussian_blur(jnp.asarray(base), 3.0))
@@ -78,7 +78,7 @@ def test_brief_rotation_steers_descriptor():
 
 
 def test_brief_binned_matches_golden():
-    from tinyslam_tpu.ops.brief import brief_descriptors_binned
+    from tinyslam.ops.brief import brief_descriptors_binned
     from tests.golden import brief_binned_naive
 
     rng = np.random.default_rng(11)
@@ -102,8 +102,8 @@ def test_brief_binned_close_to_continuous():
     """Quantizing orientation to 11.25-degree bins must stay descriptor-
     compatible with the continuous path: small Hamming distance between the
     two encodings of the same feature."""
-    from tinyslam_tpu.ops.brief import brief_descriptors_binned
-    from tinyslam_tpu.ops.image import gaussian_blur
+    from tinyslam.ops.brief import brief_descriptors_binned
+    from tinyslam.ops.image import gaussian_blur
     from tests.golden import hamming_naive
 
     rng = np.random.default_rng(12)

@@ -8,11 +8,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tinyslam_tpu.ops.brief import BRIEF_PATTERN, RANDOM_PATTERN
+from tinyslam.ops.brief import BRIEF_PATTERN, RANDOM_PATTERN
 
 
 def test_learned_pattern_exists_and_valid():
-    from tinyslam_tpu.ops.brief_pattern_learned import LEARNED_PATTERN
+    from tinyslam.ops.brief_pattern_learned import LEARNED_PATTERN
 
     assert LEARNED_PATTERN.shape == (256, 2, 2)
     assert np.abs(LEARNED_PATTERN).max() <= 13
@@ -52,7 +52,7 @@ def test_learned_pattern_less_correlated():
         np.fill_diagonal(C, 0.0)
         return np.abs(m - 0.5).mean(), np.abs(C).mean()
 
-    from tinyslam_tpu.ops.brief_pattern_learned import LEARNED_PATTERN
+    from tinyslam.ops.brief_pattern_learned import LEARNED_PATTERN
 
     bias_l, corr_l = stats(LEARNED_PATTERN)
     bias_r, corr_r = stats(RANDOM_PATTERN)
@@ -66,12 +66,12 @@ def test_shipped_pattern_wins_matching():
     pattern must match at least as well as the decorrelated alternative
     (it measured 537 vs 469 matches when the choice was made — if this
     flips after a retrain, flip the default)."""
-    from tinyslam_tpu.data.synthetic import TexturedRoom, look_at
-    from tinyslam_tpu.geometry.camera import PinholeCamera
-    from tinyslam_tpu.config import FrontendConfig
-    from tinyslam_tpu.frontend.orb import extract_features
-    from tinyslam_tpu.ops.hamming import match_descriptors
-    from tinyslam_tpu.ops import brief as B
+    from tinyslam.data.synthetic import TexturedRoom, look_at
+    from tinyslam.geometry.camera import PinholeCamera
+    from tinyslam.config import FrontendConfig
+    from tinyslam.frontend.orb import extract_features
+    from tinyslam.ops.hamming import match_descriptors
+    from tinyslam.ops import brief as B
 
     rng = np.random.default_rng(5)
     room = TexturedRoom(rng, tex_res=256, octaves=3)
@@ -108,7 +108,7 @@ def test_shipped_pattern_wins_matching():
         m = match_descriptors(f1.desc, f1.valid, f2.desc, f2.valid)
         return int(np.asarray(m["valid"]).sum())
 
-    from tinyslam_tpu.ops.brief_pattern_learned import LEARNED_PATTERN
+    from tinyslam.ops.brief_pattern_learned import LEARNED_PATTERN
 
     s_learned = score(np.asarray(LEARNED_PATTERN))
     s_random = score(np.asarray(RANDOM_PATTERN))

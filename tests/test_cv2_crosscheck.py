@@ -26,10 +26,10 @@ import pytest
 
 pytestmark = pytest.mark.slow
 
-from tinyslam_tpu.config import FrontendConfig
-from tinyslam_tpu.data.synthetic import TexturedRoom, default_camera, look_at
-from tinyslam_tpu.frontend.orb import extract_features
-from tinyslam_tpu.ops.hamming import match_descriptors
+from tinyslam.config import FrontendConfig
+from tinyslam.data.synthetic import TexturedRoom, default_camera, look_at
+from tinyslam.frontend.orb import extract_features
+from tinyslam.ops.hamming import match_descriptors
 
 W, H = 640, 480
 
@@ -60,7 +60,7 @@ def _map_pts(Hab, xy):
 
 
 def _ours(img):
-    cfg = FrontendConfig(use_pallas=False)
+    cfg = FrontendConfig()
     f = extract_features(jnp.asarray(img.astype(np.float32)),
                          jnp.float32(cfg.threshold), cfg)
     v = np.asarray(f.valid)

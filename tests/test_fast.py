@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from tinyslam_tpu.ops.fast import fast_score_map, nms3x3
+from tinyslam.ops.fast import fast_score_map, nms3x3
 from tests.golden import corner_image, fast_score_naive, nms3x3_naive
 
 

@@ -9,7 +9,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tinyslam_tpu.utils.faults import Heartbeat, SnapshotPolicy, Watchdog
+from tinyslam.utils.faults import Heartbeat, SnapshotPolicy, Watchdog
 
 
 def test_watchdog_restarts_dead_worker():
@@ -65,7 +65,7 @@ def test_heartbeat_device_and_hang():
 
 
 def _mini_scene(n_frames: int):
-    from tinyslam_tpu.data.synthetic import vo_sequence
+    from tinyslam.data.synthetic import vo_sequence
 
     rng = np.random.default_rng(21)
     return vo_sequence(rng, num_frames=n_frames, width=320, height=240)
@@ -76,8 +76,8 @@ def test_snapshot_crash_restore_resumes_tracking(tmp_path):
     """Kill the tracker mid-sequence; a fresh instance restored from the last
     periodic snapshot must re-localize against the restored map and keep
     tracking the remaining frames."""
-    from tinyslam_tpu.config import SlamConfig
-    from tinyslam_tpu.models import VisualOdometry
+    from tinyslam.config import SlamConfig
+    from tinyslam.models import VisualOdometry
 
     cam, images, poses, _ = _mini_scene(46)
     cfg = SlamConfig()
@@ -113,9 +113,9 @@ def test_snapshot_crash_restore_resumes_tracking(tmp_path):
 @pytest.mark.slow
 def test_slam_snapshot_roundtrip(tmp_path):
     """save_slam/restore_slam round-trips the loop-closure layer."""
-    from tinyslam_tpu.config import SlamConfig
-    from tinyslam_tpu.models import Slam
-    from tinyslam_tpu.utils.checkpoint import restore_slam, save_slam
+    from tinyslam.config import SlamConfig
+    from tinyslam.models import Slam
+    from tinyslam.utils.checkpoint import restore_slam, save_slam
 
     cam, images, poses, _ = _mini_scene(30)
     cfg = SlamConfig()

@@ -4,13 +4,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from tinyslam_tpu.geometry.epipolar import essential_from_pose, sampson_error
-from tinyslam_tpu.geometry.fivepoint import (
+from tinyslam.geometry.epipolar import essential_from_pose, sampson_error
+from tinyslam.geometry.fivepoint import (
     durand_kerner_roots,
     five_point_essential,
     ransac_essential_5pt,
 )
-from tinyslam_tpu.geometry.se3 import se3_exp
+from tinyslam.geometry.se3 import se3_exp
 
 
 def test_durand_kerner_known_roots():

@@ -2,14 +2,14 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from tinyslam_tpu.config import FrontendConfig
-from tinyslam_tpu.frontend import OrbFrontend
+from tinyslam.config import FrontendConfig
+from tinyslam.frontend import OrbFrontend
 from tests.golden import dot_grid
 
 
 def _cfg(**kw):
     base = dict(height=96, width=128, num_levels=3, features_per_level=64,
-                threshold=0.1, use_pallas=False)
+                threshold=0.1)
     base.update(kw)
     return FrontendConfig(**base)
 

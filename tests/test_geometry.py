@@ -2,23 +2,23 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from tinyslam_tpu.data.synthetic import (
+from tinyslam.data.synthetic import (
     default_camera,
     look_at,
     normalized,
     project_points,
     random_points,
 )
-from tinyslam_tpu.geometry.epipolar import (
+from tinyslam.geometry.epipolar import (
     decompose_essential,
     eight_point_essential,
     essential_from_pose,
     sampson_error,
     triangulate,
 )
-from tinyslam_tpu.geometry.pnp import pnp_refine
-from tinyslam_tpu.geometry.ransac import ransac_essential, recover_pose
-from tinyslam_tpu.geometry.se3 import se3_compose, se3_exp, se3_identity, se3_inverse
+from tinyslam.geometry.pnp import pnp_refine
+from tinyslam.geometry.ransac import ransac_essential, recover_pose
+from tinyslam.geometry.se3 import se3_compose, se3_exp, se3_identity, se3_inverse
 
 
 def _two_view(rng, n=200, noise_px=0.0, outlier_frac=0.0):
@@ -87,7 +87,7 @@ def test_ransac_and_pose_recovery_with_outliers():
     )
     assert int(res["num_inliers"]) > 0.5 * vis.sum()
     pose = recover_pose(res["E"], jnp.asarray(x1), jnp.asarray(x2), res["inliers"])
-    from tinyslam_tpu.geometry.ransac import refine_relative_pose
+    from tinyslam.geometry.ransac import refine_relative_pose
 
     R_ref, t_ref = refine_relative_pose(
         pose["R"], pose["t"], jnp.asarray(x1), jnp.asarray(x2), res["inliers"],
@@ -144,7 +144,7 @@ def test_pnp_robust_to_outliers():
 def test_pnp_ransac_recovers_without_prior():
     """Relocalization: absolute pose from scratch (no initial guess), with
     30% wrong correspondences — the case GN-only pnp_refine cannot solve."""
-    from tinyslam_tpu.geometry.pnp import pnp_ransac
+    from tinyslam.geometry.pnp import pnp_ransac
 
     rng = np.random.default_rng(5)
     cam = default_camera()

@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from tinyslam_tpu.ops.hamming import hamming_distance_matrix, match_descriptors
-from tinyslam_tpu.types import pack_descriptor_bits, unpack_descriptor_bits
+from tinyslam.ops.hamming import hamming_distance_matrix, match_descriptors
+from tinyslam.types import pack_descriptor_bits, unpack_descriptor_bits
 from tests.golden import hamming_naive
 
 
@@ -52,15 +52,24 @@ def test_match_respects_validity_and_distance():
 
 
 def test_streaming_eligibility_matches_kernel_blocking():
-    """ADVICE r3: eligibility must track the kernel's actual blocking
-    (nb = min(256, n), mb = min(8192, m)) — m = 12288 passes a naive
-    %1024 check but would assert inside match_reduce_streaming."""
-    from tinyslam_tpu.ops.hamming import _streaming_shapes_ok as elig
+    """Eligibility for the fused matcher no longer depends on shape: the
+    kernel pads rows and columns to its blocking, so shapes that are not
+    block multiples (and tiny ones) must match the XLA path exactly."""
+    from tinyslam.ops.hamming import matcher_path
 
-    assert elig(2048, 8192)
-    assert elig(256, 1024)
-    assert elig(2048, 16384)       # two exact j blocks (scratch-accumulated)
-    assert not elig(2048, 12288)   # mb=8192 would not divide M
-    assert not elig(2048, 8320)    # not a j-block multiple past 8192
-    assert not elig(7, 8192)       # n too small
-    assert not elig(2048, 100)     # m below lane tile
+    assert matcher_path(64, 0.9, backend="gpu") == "triton"
+    rng = np.random.default_rng(4)
+    for n, m in ((7, 100), (70, 1100)):
+        da = rng.integers(0, 2**32 - 1, (n, 8), np.uint32)
+        db = rng.integers(0, 2**32 - 1, (m, 8), np.uint32)
+        db[:n] = da
+        va, vb = jnp.ones(n, bool), jnp.ones(m, bool)
+        ref = match_descriptors(jnp.asarray(da), va, jnp.asarray(db), vb,
+                                kernel=False)
+        out = match_descriptors(jnp.asarray(da), va, jnp.asarray(db), vb,
+                                interpret=True)
+        v = np.asarray(ref["valid"])
+        assert v.sum() == n
+        np.testing.assert_array_equal(np.asarray(out["valid"]), v)
+        np.testing.assert_array_equal(np.asarray(out["idx_b"]),
+                                      np.asarray(ref["idx_b"]))

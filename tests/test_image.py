@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from tinyslam_tpu.ops import (
+from tinyslam.ops import (
     rgb_to_gray,
     downsample2x,
     gaussian_blur,
@@ -66,8 +66,8 @@ def test_textured_room_clutter_renders_and_occludes():
     and consistent with the ground-truth raycast."""
     import numpy as np
 
-    from tinyslam_tpu.data.synthetic import TexturedRoom, look_at
-    from tinyslam_tpu.geometry.camera import PinholeCamera
+    from tinyslam.data.synthetic import TexturedRoom, look_at
+    from tinyslam.geometry.camera import PinholeCamera
 
     rng = np.random.default_rng(2)
     room = TexturedRoom(rng, tex_res=64, octaves=2, clutter=5)

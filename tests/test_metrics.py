@@ -1,6 +1,6 @@
 import json
 
-from tinyslam_tpu.utils.metrics import Metrics
+from tinyslam.utils.metrics import Metrics
 
 
 def test_metrics_record_and_summary():

@@ -4,12 +4,12 @@ PNG writer, PGM/PPM, and a synthetic TUM-format sequence."""
 import numpy as np
 import pytest
 
-from tinyslam_tpu.data.png import write_png
+from tinyslam.data.png import write_png
 
 
 @pytest.fixture(scope="module")
 def lib():
-    from tinyslam_tpu.native import get_lib
+    from tinyslam.native import get_lib
 
     try:
         return get_lib()
@@ -18,7 +18,7 @@ def lib():
 
 
 def test_png_gray8_roundtrip(tmp_path, lib):
-    from tinyslam_tpu.native import decode_image
+    from tinyslam.native import decode_image
 
     rng = np.random.default_rng(0)
     img = rng.integers(0, 256, (48, 64), dtype=np.uint8)
@@ -29,7 +29,7 @@ def test_png_gray8_roundtrip(tmp_path, lib):
 
 
 def test_png_rgb8_roundtrip(tmp_path, lib):
-    from tinyslam_tpu.native import decode_image
+    from tinyslam.native import decode_image
 
     rng = np.random.default_rng(1)
     img = rng.integers(0, 256, (33, 57, 3), dtype=np.uint8)
@@ -40,7 +40,7 @@ def test_png_rgb8_roundtrip(tmp_path, lib):
 
 
 def test_png_gray16_roundtrip(tmp_path, lib):
-    from tinyslam_tpu.native import decode_image
+    from tinyslam.native import decode_image
 
     rng = np.random.default_rng(2)
     img = rng.integers(0, 65536, (24, 31), dtype=np.uint16)
@@ -52,7 +52,7 @@ def test_png_gray16_roundtrip(tmp_path, lib):
 
 
 def test_pgm_roundtrip(tmp_path, lib):
-    from tinyslam_tpu.native import decode_image
+    from tinyslam.native import decode_image
 
     rng = np.random.default_rng(3)
     img = rng.integers(0, 256, (20, 30), dtype=np.uint8)
@@ -65,14 +65,14 @@ def test_pgm_roundtrip(tmp_path, lib):
 
 
 def test_decode_missing_file(tmp_path, lib):
-    from tinyslam_tpu.native import decode_image
+    from tinyslam.native import decode_image
 
     with pytest.raises(IOError):
         decode_image(tmp_path / "nope.png")
 
 
 def test_frame_loader_order_and_content(tmp_path, lib):
-    from tinyslam_tpu.native import FrameLoader
+    from tinyslam.native import FrameLoader
 
     rng = np.random.default_rng(4)
     imgs = [rng.integers(0, 256, (16, 24), dtype=np.uint8) for _ in range(20)]
@@ -89,7 +89,7 @@ def test_frame_loader_order_and_content(tmp_path, lib):
 
 
 def test_tum_sequence(tmp_path, lib):
-    from tinyslam_tpu.data.tum import TumSequence
+    from tinyslam.data.tum import TumSequence
 
     rng = np.random.default_rng(5)
     (tmp_path / "rgb").mkdir()
@@ -118,7 +118,7 @@ def test_tum_sequence(tmp_path, lib):
 
 
 def test_euroc_sequence(tmp_path, lib):
-    from tinyslam_tpu.data.euroc import EurocSequence
+    from tinyslam.data.euroc import EurocSequence
 
     rng = np.random.default_rng(6)
     cam = tmp_path / "mav0" / "cam0"

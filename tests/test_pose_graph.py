@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from tinyslam_tpu.backend.pose_graph import edge_residual, optimize_pose_graph
-from tinyslam_tpu.geometry.se3 import se3_compose, se3_exp, se3_inverse
+from tinyslam.backend.pose_graph import edge_residual, optimize_pose_graph
+from tinyslam.geometry.se3 import se3_compose, se3_exp, se3_inverse
 
 
 def _circle_poses(n, radius=5.0):

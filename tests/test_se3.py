@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from tinyslam_tpu.geometry.se3 import (
+from tinyslam.geometry.se3 import (
     se3_apply,
     se3_compose,
     se3_exp,

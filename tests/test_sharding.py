@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from tinyslam_tpu.backend.ba import bundle_adjust
-from tinyslam_tpu.config import FrontendConfig, MeshConfig
-from tinyslam_tpu.parallel import (
+from tinyslam.backend.ba import bundle_adjust
+from tinyslam.config import FrontendConfig, MeshConfig
+from tinyslam.parallel import (
     bundle_adjust_sharded,
     extract_features_batch,
     make_mesh,
@@ -69,7 +69,7 @@ def test_dist_ba_reduces_cost_with_landmark_sharding(mesh):
 
 def test_frontend_dp_matches_per_frame(mesh):
     from tests.golden import dot_grid
-    from tinyslam_tpu.frontend import OrbFrontend
+    from tinyslam.frontend import OrbFrontend
 
     cfg = FrontendConfig(height=96, width=128, num_levels=2,
                          features_per_level=64, threshold=0.1,
@@ -97,9 +97,9 @@ def test_frontend_dp_matches_per_frame(mesh):
 
 def test_dist_pose_graph_matches_single_device(mesh):
     from tests.test_pose_graph import _circle_poses, _relative
-    from tinyslam_tpu.backend.pose_graph import optimize_pose_graph
-    from tinyslam_tpu.parallel import optimize_pose_graph_sharded
-    from tinyslam_tpu.geometry.se3 import se3_compose, se3_exp
+    from tinyslam.backend.pose_graph import optimize_pose_graph
+    from tinyslam.parallel import optimize_pose_graph_sharded
+    from tinyslam.geometry.se3 import se3_compose, se3_exp
 
     rng = np.random.default_rng(3)
     n = 16
@@ -153,15 +153,15 @@ def test_node_sharded_pose_graph_parity(mesh):
     ppermute halo) pose graph converges to the replicated solver's optimum
     on a noisy loop graph."""
     from tests.test_pose_graph import _circle_poses, _relative
-    from tinyslam_tpu.backend.pose_graph import optimize_pose_graph
-    from tinyslam_tpu.parallel.dist_pose_graph import (
+    from tinyslam.backend.pose_graph import optimize_pose_graph
+    from tinyslam.parallel.dist_pose_graph import (
         optimize_pose_graph_node_sharded,
     )
 
     rng = np.random.default_rng(5)
     n = 64
     gt = _circle_poses(n)
-    from tinyslam_tpu.geometry.se3 import se3_compose, se3_exp
+    from tinyslam.geometry.se3 import se3_compose, se3_exp
 
     est = [gt[0]]
     edges = []

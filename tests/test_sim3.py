@@ -10,13 +10,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from tinyslam_tpu.backend.pose_graph import (
+from tinyslam.backend.pose_graph import (
     optimize_pose_graph,
     optimize_pose_graph_sim3,
     sim3_edge_residual,
 )
-from tinyslam_tpu.geometry.se3 import se3_compose, se3_exp, se3_inverse
-from tinyslam_tpu.geometry.sim3 import (
+from tinyslam.geometry.se3 import se3_compose, se3_exp, se3_inverse
+from tinyslam.geometry.sim3 import (
     sim3_apply,
     sim3_compose,
     sim3_exp,

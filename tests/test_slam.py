@@ -6,16 +6,16 @@ import pytest
 
 pytestmark = pytest.mark.slow
 
-from tinyslam_tpu.config import (
+from tinyslam.config import (
     BAConfig,
     FrontendConfig,
     PoseGraphConfig,
     SlamConfig,
     VOConfig,
 )
-from tinyslam_tpu.data.synthetic import vo_sequence
-from tinyslam_tpu.models.slam import Slam
-from tinyslam_tpu.utils.evaluation import ate_rmse
+from tinyslam.data.synthetic import vo_sequence
+from tinyslam.models.slam import Slam
+from tinyslam.utils.evaluation import ate_rmse
 
 
 def _cfg():
@@ -90,7 +90,7 @@ def test_device_slam_runs_and_closes_loops(out_and_back):
     """DeviceSlam: the same loop-closure layer over the chunked device
     tracker — keyframes sync from VOState.win_feats at chunk boundaries,
     corrections apply functionally to the device state."""
-    from tinyslam_tpu.models.slam import DeviceSlam
+    from tinyslam.models.slam import DeviceSlam
 
     cam, images, gt_poses = out_and_back
     slam = DeviceSlam(_cfg(), cam, chunk=8)
@@ -113,7 +113,7 @@ def test_device_slam_runs_and_closes_loops(out_and_back):
 def test_async_worker_latest_wins():
     import time
 
-    from tinyslam_tpu.parallel.pipeline import AsyncWorker
+    from tinyslam.parallel.pipeline import AsyncWorker
 
     w = AsyncWorker()
     try:
@@ -137,7 +137,7 @@ def test_async_worker_latest_wins():
 
 
 def test_async_worker_propagates_errors():
-    from tinyslam_tpu.parallel.pipeline import AsyncWorker
+    from tinyslam.parallel.pipeline import AsyncWorker
 
     w = AsyncWorker()
     try:
@@ -157,7 +157,7 @@ def test_device_slam_keyframe_churn_keeps_features(out_and_back):
     chunk=16, most keyframes roll out of the 8-slot BA window before the
     host ever syncs them — their features must survive via the device
     keyframe ring (VOState.kf_ring) so they can still seed loop closures."""
-    from tinyslam_tpu.models.slam import DeviceSlam
+    from tinyslam.models.slam import DeviceSlam
 
     cam, images, gt_poses = out_and_back
     base = _cfg()

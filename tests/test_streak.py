@@ -6,7 +6,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tinyslam_tpu.ops.fast import detect_streak, detect_streak_16
+from tinyslam.ops.fast import detect_streak, detect_streak_16
 from tests.golden import streak16_naive
 
 

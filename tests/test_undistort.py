@@ -4,7 +4,7 @@ golden references, not self-reimplementations)."""
 import numpy as np
 import pytest
 
-from tinyslam_tpu.data.undistort import (
+from tinyslam.data.undistort import (
     Undistorter,
     radtan_distort,
     remap_bilinear,

@@ -6,15 +6,15 @@ import pytest
 
 pytestmark = pytest.mark.slow
 
-from tinyslam_tpu.config import (
+from tinyslam.config import (
     BAConfig,
     FrontendConfig,
     SlamConfig,
     VOConfig,
 )
-from tinyslam_tpu.data.synthetic import vo_sequence
-from tinyslam_tpu.models.vo import VisualOdometry
-from tinyslam_tpu.utils.evaluation import ate_rmse
+from tinyslam.data.synthetic import vo_sequence
+from tinyslam.models.vo import VisualOdometry
+from tinyslam.utils.evaluation import ate_rmse
 
 
 def _small_cfg():

@@ -7,16 +7,16 @@ import pytest
 
 pytestmark = pytest.mark.slow
 
-from tinyslam_tpu.config import (
+from tinyslam.config import (
     BAConfig,
     FrontendConfig,
     SlamConfig,
     VOConfig,
 )
-from tinyslam_tpu.data.synthetic import vo_sequence
-from tinyslam_tpu.models.vo import VisualOdometry
-from tinyslam_tpu.models.vo_device import DeviceVO
-from tinyslam_tpu.utils.evaluation import ate_rmse
+from tinyslam.data.synthetic import vo_sequence
+from tinyslam.models.vo import VisualOdometry
+from tinyslam.models.vo_device import DeviceVO
+from tinyslam.utils.evaluation import ate_rmse
 
 
 def _small_cfg():
@@ -80,7 +80,7 @@ def test_device_vo_checkpoint_crash_restore(tmp_path, sequence):
     periodic snapshot (the whole VOState is one Orbax pytree) must
     relocalize against the restored device-resident map and keep tracking
     (VERDICT r2 item 4: the flagship tracker must be checkpointable)."""
-    from tinyslam_tpu.utils.faults import SnapshotPolicy
+    from tinyslam.utils.faults import SnapshotPolicy
 
     cam, images, _, _ = sequence
     tmp = tmp_path / "snaps"

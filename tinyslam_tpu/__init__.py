@@ -1,61 +1,58 @@
-"""tinyslam_tpu — a TPU-native visual SLAM framework.
+"""The package's former name, kept as an alias of ``tinyslam``.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
-``ccaven/tinyslam`` reference (reference: /root/reference, Rust + WGSL,
-wgpu/Vulkan).  The reference implements an ORB feature-extraction front-end
-(reference src/orb.rs:1-589 and src/shaders/*.wgsl); its README roadmap
-(reference README.md:53-57) plus the driver's BASELINE.json define the full
-intended pipeline, which this framework implements completely:
-
-- ``ops``       — device kernels: grayscale, image pyramid, separable Gaussian
-                  blur, FAST-16 corner scoring (bitwise streak trick), top-k
-                  compaction/NMS, steered BRIEF, MXU Hamming matching.
-- ``frontend``  — the ORB front-end pipeline (jitted end-to-end).
-- ``geometry``  — SE3/SO3, pinhole cameras, essential-matrix estimation,
-                  RANSAC, triangulation, PnP.
-- ``backend``   — Schur-complement Levenberg–Marquardt bundle adjustment and
-                  pose-graph optimization.
-- ``parallel``  — device-mesh sharding: frame data parallelism, landmark-block
-                  sharding for distributed BA (psum over ICI), multi-host
-                  helpers.
-- ``models``    — assembled systems: OrbFrontend, VisualOdometry, Slam.
-- ``data``      — TUM RGB-D / EuRoC loaders (native C++ PNG decode),
-                  synthetic scene generators.
-- ``utils``     — ATE/RPE evaluation, metrics registry, profiling,
-                  checkpointing.
-
-Design stance (see SURVEY.md §7): pure functions over fixed-shape pytrees,
-jitted end-to-end; dynamic feature counts are fixed-capacity arrays + valid
-masks; compaction by deterministic top-k instead of device atomics; matching
-and BA shaped for the MXU.
+``import <this name>.ops.hamming`` gives the very module object that
+``import tinyslam.ops.hamming`` gives, and ``python -m <this name>.run``
+runs ``tinyslam.run``.  Importing it warns; new code imports ``tinyslam``.
 """
 
-__version__ = "0.1.0"
+from __future__ import annotations
 
-import os as _os
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
 
-import jax as _jax
+import tinyslam
 
-# TPU MXU f32 matmuls default to bfloat16 multiplies; that is fine for the
-# front-end (descriptors tolerate bit noise; Hamming matching is int8) but it
-# poisons the GEOMETRY path — triangulation, PnP Gauss-Newton, the BA Schur
-# solve — where bf16's 8-bit mantissa costs ~10x trajectory accuracy
-# (measured: close-range desk sequence ATE 0.134 m on TPU-bf16 vs 0.014 m on
-# f32).  Accuracy is a product target (BASELINE: ATE <= 0.05 m), so float32
-# is the framework default; the few throughput-critical front-end matmuls
-# opt back into fast bf16 explicitly (ops/brief.py).  Override with
-# TINYSLAM_MATMUL_PRECISION=default to benchmark the difference.
-_jax.config.update(
-    "jax_default_matmul_precision",
-    _os.environ.get("TINYSLAM_MATMUL_PRECISION", "float32"),
-)
+_PREFIX = __name__ + "."
 
-from tinyslam_tpu.config import (  # noqa: F401
-    FrontendConfig,
-    MatcherConfig,
-    RansacConfig,
-    BAConfig,
-    VOConfig,
-    SlamConfig,
-)
-from tinyslam_tpu.types import Features  # noqa: F401
+
+def _target(name: str) -> str:
+    return "tinyslam." + name[len(_PREFIX):]
+
+
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves ``<this name>.X`` to the already imported ``tinyslam.X``."""
+
+    def find_spec(self, name, path=None, target=None):
+        if not name.startswith(_PREFIX):
+            return None
+        real = importlib.util.find_spec(_target(name))
+        if real is None:
+            return None
+        spec = importlib.util.spec_from_loader(
+            name, self, origin=real.origin,
+            is_package=real.submodule_search_locations is not None)
+        spec.loader_state = real
+        return spec
+
+    def create_module(self, spec):
+        return importlib.import_module(spec.loader_state.name)
+
+    def exec_module(self, module):
+        # The import machinery set the alias spec on the shared module;
+        # give it back its own.
+        module.__spec__ = module.__spec__.loader_state
+
+    def get_code(self, name):          # for ``python -m``
+        real = importlib.util.find_spec(_target(name))
+        return real.loader.get_code(real.name)
+
+
+if not any(isinstance(f, _Alias) for f in sys.meta_path):
+    sys.meta_path.insert(0, _Alias())
+globals().update({k: v for k, v in vars(tinyslam).items()
+                  if not k.startswith("__")})
+warnings.warn(f"{__name__} is now tinyslam; import tinyslam instead",
+              DeprecationWarning, stacklevel=2)

@@ -22,11 +22,11 @@ def main() -> int:
     ap.add_argument("--band-hi", type=float, default=None)
     args = ap.parse_args()
 
-    from tinyslam_tpu.utils.cache import enable_compilation_cache
+    from tinyslam.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     import bench
-    import tinyslam_tpu.config as C
+    import tinyslam.config as C
 
     if args.band_lo is not None:
         orig = C.VOConfig

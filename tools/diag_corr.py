@@ -29,16 +29,16 @@ def main() -> int:
         import jax
 
         jax.config.update("jax_platforms", "cpu")
-    from tinyslam_tpu.utils.cache import enable_compilation_cache
+    from tinyslam.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     import jax.numpy as jnp
 
-    from tinyslam_tpu.config import SlamConfig
-    from tinyslam_tpu.data.tum import FR1_INTRINSICS, TumSequence
-    from tinyslam_tpu.geometry.camera import PinholeCamera
-    from tinyslam_tpu.models.slam import DeviceSlam
-    from tinyslam_tpu.utils.evaluation import ate_rmse, umeyama_alignment
+    from tinyslam.config import SlamConfig
+    from tinyslam.data.tum import FR1_INTRINSICS, TumSequence
+    from tinyslam.geometry.camera import PinholeCamera
+    from tinyslam.models.slam import DeviceSlam
+    from tinyslam.utils.evaluation import ate_rmse, umeyama_alignment
 
     cfg = SlamConfig()
     if args.no_reboot:

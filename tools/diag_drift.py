@@ -52,18 +52,18 @@ def main() -> int:
 
         jax.config.update("jax_platforms", "cpu")
 
-    from tinyslam_tpu.utils.cache import enable_compilation_cache
+    from tinyslam.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     import jax
     import jax.numpy as jnp
 
     from error_budget import _dist_travelled, _windowed_scale
-    from tinyslam_tpu.config import SlamConfig
-    from tinyslam_tpu.data.tum import FR1_INTRINSICS, TumSequence
-    from tinyslam_tpu.geometry.camera import PinholeCamera
-    from tinyslam_tpu.models import DeviceVO
-    from tinyslam_tpu.utils.evaluation import ate_rmse
+    from tinyslam.config import SlamConfig
+    from tinyslam.data.tum import FR1_INTRINSICS, TumSequence
+    from tinyslam.geometry.camera import PinholeCamera
+    from tinyslam.models import DeviceVO
+    from tinyslam.utils.evaluation import ate_rmse
 
     cfg = SlamConfig()
     cfg = cfg.replace(vo=cfg.vo.replace(**VARIANTS[args.variant]))
@@ -100,7 +100,7 @@ def main() -> int:
         "windowed_scale": [round(float(s), 3) for s in scales],
     }
     if args.gt_depth and vo.state is not None and vo.num_reboots == 0:
-        from tinyslam_tpu.data.synthetic import TexturedRoom
+        from tinyslam.data.synthetic import TexturedRoom
 
         room = TexturedRoom(np.random.default_rng(101), tex_res=256,
                             octaves=4)

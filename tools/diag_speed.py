@@ -27,17 +27,17 @@ def main():
     args = ap.parse_args()
 
     if not args.no_cache:
-        from tinyslam_tpu.utils.cache import enable_compilation_cache
+        from tinyslam.utils.cache import enable_compilation_cache
 
         enable_compilation_cache()
 
     import jax
     import jax.numpy as jnp
 
-    from tinyslam_tpu.config import SlamConfig
-    from tinyslam_tpu.data.tum import FR1_INTRINSICS, TumSequence
-    from tinyslam_tpu.geometry.camera import PinholeCamera
-    from tinyslam_tpu.models import DeviceVO
+    from tinyslam.config import SlamConfig
+    from tinyslam.data.tum import FR1_INTRINSICS, TumSequence
+    from tinyslam.geometry.camera import PinholeCamera
+    from tinyslam.models import DeviceVO
 
     seq = TumSequence.open(Path(args.seq))
     cam = PinholeCamera.create(**FR1_INTRINSICS)

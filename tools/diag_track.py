@@ -1,6 +1,5 @@
-"""Round-5 diagnostic: per-config tracked-frame comparison on a cached
-eval sequence.  Isolates WHERE the TPU-vs-CPU tracking gap comes from
-(Pallas frontend vs XLA frontend, matmul precision, streaming matcher).
+"""Per-config tracked-frame comparison on a cached eval sequence: isolates
+which component (matcher path, VO settings) moves tracking.
 
     python tools/diag_track.py --seq .seqcache/fr1_desk_like [--variant NAME]
 """
@@ -8,10 +7,12 @@ eval sequence.  Isolates WHERE the TPU-vs-CPU tracking gap comes from
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
@@ -19,37 +20,36 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
 def run(seq_dir: Path, variant: str, frames: int) -> dict:
-    from tinyslam_tpu.utils.cache import enable_compilation_cache
+    from tinyslam.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     import jax
     import jax.numpy as jnp
 
-    from tinyslam_tpu.config import SlamConfig
-    from tinyslam_tpu.geometry.camera import PinholeCamera
-    from tinyslam_tpu.models import DeviceVO
-    from tinyslam_tpu.utils.evaluation import ate_rmse
+    from tinyslam.config import SlamConfig
+    from tinyslam.geometry.camera import PinholeCamera
+    from tinyslam.models import DeviceVO
+    from tinyslam.utils.evaluation import ate_rmse
 
     if (seq_dir / "mav0").exists():
-        from tinyslam_tpu.data.euroc import EUROC_CAM0, EurocSequence
+        from tinyslam.data.euroc import EUROC_CAM0, EurocSequence
 
         seq = EurocSequence.open(seq_dir)
         cam = PinholeCamera.create(**EUROC_CAM0)
     else:
-        from tinyslam_tpu.data.tum import FR1_INTRINSICS, TumSequence
+        from tinyslam.data.tum import FR1_INTRINSICS, TumSequence
 
         seq = TumSequence.open(seq_dir)
         cam = PinholeCamera.create(**FR1_INTRINSICS)
     gt = seq.gt_positions()
 
     cfg = SlamConfig()
-    if variant == "no_pallas":
-        cfg = cfg.replace(frontend=cfg.frontend.replace(use_pallas=False))
-    elif variant == "no_streaming":
-        # monkeypatch eligibility off
-        import tinyslam_tpu.ops.hamming as H
-
-        H._streaming_eligible = lambda *a, **k: False
+    # ops.hamming.matcher_path is the one place that chooses the matcher;
+    # the variant patches it for the whole run (before anything is traced).
+    matcher = contextlib.nullcontext()
+    if variant == "xla_matcher":
+        matcher = mock.patch("tinyslam.ops.hamming.matcher_path",
+                             return_value="xla")
     elif variant.startswith("vo:"):
         # e.g. --variant vo:track_radius_px=32,reloc_max_frames=6
         kw = {}
@@ -66,12 +66,13 @@ def run(seq_dir: Path, variant: str, frames: int) -> dict:
     vo = DeviceVO(cfg, cam)
     t0 = time.time()
     n = 0
-    for ts, img in seq.frames():
-        vo.process(img)
-        n += 1
-        if n >= frames:
-            break
-    vo.flush()
+    with matcher:
+        for ts, img in seq.frames():
+            vo.process(img)
+            n += 1
+            if n >= frames:
+                break
+        vo.flush()
     wall = time.time() - t0
     tracked = sum(1 for s in vo.stats if s.tracking)
     first = next((i for i, s in enumerate(vo.stats) if s.tracking), 0)

@@ -39,7 +39,7 @@ sys.path.insert(0, str(REPO / "tools"))
 
 def _windowed_scale(est: np.ndarray, gt: np.ndarray, win: int = 30):
     """Umeyama scale + rmse per sliding window: scale drift profile."""
-    from tinyslam_tpu.utils.evaluation import umeyama_alignment
+    from tinyslam.utils.evaluation import umeyama_alignment
 
     out = []
     for a in range(0, len(est) - win, max(win // 2, 1)):
@@ -60,7 +60,7 @@ def _dist_travelled(gt: np.ndarray) -> float:
 def _run_system(seq, cam, cfg, mode: str, tracker: str = "device"):
     import jax.numpy as jnp
 
-    from tinyslam_tpu.models import DeviceSlam, DeviceVO
+    from tinyslam.models import DeviceSlam, DeviceVO
 
     if mode == "slam":
         system = DeviceSlam(cfg, cam)
@@ -77,20 +77,20 @@ def _run_system(seq, cam, cfg, mode: str, tracker: str = "device"):
 
 
 def _load(kind: str, root: Path):
-    from tinyslam_tpu.geometry.camera import PinholeCamera
+    from tinyslam.geometry.camera import PinholeCamera
 
     if kind == "tum":
-        from tinyslam_tpu.data.tum import FR1_INTRINSICS, TumSequence
+        from tinyslam.data.tum import FR1_INTRINSICS, TumSequence
 
         return TumSequence.open(root), PinholeCamera.create(**FR1_INTRINSICS)
-    from tinyslam_tpu.data.euroc import EUROC_CAM0, EurocSequence
+    from tinyslam.data.euroc import EUROC_CAM0, EurocSequence
 
     return EurocSequence.open(root), PinholeCamera.create(**EUROC_CAM0)
 
 
 def budget_for_sequence(name: str, kind: str, root: Path) -> dict:
-    from tinyslam_tpu.config import SlamConfig
-    from tinyslam_tpu.utils.evaluation import ate_rmse, umeyama_alignment
+    from tinyslam.config import SlamConfig
+    from tinyslam.utils.evaluation import ate_rmse, umeyama_alignment
 
     seq, cam = _load(kind, root)
     gt = seq.gt_positions()
@@ -213,7 +213,7 @@ def main() -> int:
                     action="append")
     ap.add_argument("--cpu", action="store_true",
                     help="force the CPU backend (accuracy is backend-"
-                         "independent; keeps the TPU free for benchmarks)")
+                         "independent; keeps the GPU free for benchmarks)")
     args = ap.parse_args()
 
     if args.cpu:
@@ -221,7 +221,7 @@ def main() -> int:
 
         jax.config.update("jax_platforms", "cpu")
 
-    from tinyslam_tpu.utils.cache import enable_compilation_cache
+    from tinyslam.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     import eval_ate  # tools/eval_ate.py — sequence builders

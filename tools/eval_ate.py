@@ -27,11 +27,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
 def build_fr1_desk_like(root: Path, num_frames: int) -> None:
-    from tinyslam_tpu.data.synthetic import (
+    from tinyslam.data.synthetic import (
         TexturedRoom, handheld_trajectory, render_sequence, write_tum_sequence,
     )
-    from tinyslam_tpu.data.tum import FR1_DIST, FR1_INTRINSICS
-    from tinyslam_tpu.geometry.camera import PinholeCamera
+    from tinyslam.data.tum import FR1_DIST, FR1_INTRINSICS
+    from tinyslam.geometry.camera import PinholeCamera
 
     rng = np.random.default_rng(101)
     # Interior clutter (r5): fr1_desk is a CLUTTERED desk scene — a bare
@@ -51,11 +51,11 @@ def build_fr1_loop_like(root: Path, num_frames: int) -> None:
     """A full-circuit handheld walk (~378 degrees) that RETURNS to its
     start: the trajectory revisit the place-recognition stack needs to
     demonstrate an actual loop closure (fr1's room statistics otherwise)."""
-    from tinyslam_tpu.data.synthetic import (
+    from tinyslam.data.synthetic import (
         TexturedRoom, handheld_trajectory, render_sequence, write_tum_sequence,
     )
-    from tinyslam_tpu.data.tum import FR1_DIST, FR1_INTRINSICS
-    from tinyslam_tpu.geometry.camera import PinholeCamera
+    from tinyslam.data.tum import FR1_DIST, FR1_INTRINSICS
+    from tinyslam.geometry.camera import PinholeCamera
 
     rng = np.random.default_rng(303)
     room = TexturedRoom(rng, tex_res=256, octaves=4, clutter=10)
@@ -68,11 +68,11 @@ def build_fr1_loop_like(root: Path, num_frames: int) -> None:
 
 
 def build_mh01_like(root: Path, num_frames: int) -> None:
-    from tinyslam_tpu.data.euroc import EUROC_CAM0, EUROC_DIST
-    from tinyslam_tpu.data.synthetic import (
+    from tinyslam.data.euroc import EUROC_CAM0, EUROC_DIST
+    from tinyslam.data.synthetic import (
         TexturedRoom, mav_trajectory, render_sequence, write_euroc_sequence,
     )
-    from tinyslam_tpu.geometry.camera import PinholeCamera
+    from tinyslam.geometry.camera import PinholeCamera
 
     rng = np.random.default_rng(202)
     room = TexturedRoom(rng, half_size=(8.0, 5.0, 8.0), tex_res=256,
@@ -88,18 +88,18 @@ def run_sequence(name: str, kind: str, root: Path, mode: str,
     import jax
     import jax.numpy as jnp
 
-    from tinyslam_tpu.config import SlamConfig
-    from tinyslam_tpu.geometry.camera import PinholeCamera
-    from tinyslam_tpu.models import DeviceSlam, DeviceVO, Slam, VisualOdometry
-    from tinyslam_tpu.utils.evaluation import ate_rmse, rpe
+    from tinyslam.config import SlamConfig
+    from tinyslam.geometry.camera import PinholeCamera
+    from tinyslam.models import DeviceSlam, DeviceVO, Slam, VisualOdometry
+    from tinyslam.utils.evaluation import ate_rmse, rpe
 
     if kind == "tum":
-        from tinyslam_tpu.data.tum import FR1_INTRINSICS, TumSequence
+        from tinyslam.data.tum import FR1_INTRINSICS, TumSequence
 
         seq = TumSequence.open(root)
         cam = PinholeCamera.create(**FR1_INTRINSICS)
     else:
-        from tinyslam_tpu.data.euroc import EUROC_CAM0, EurocSequence
+        from tinyslam.data.euroc import EUROC_CAM0, EurocSequence
 
         seq = EurocSequence.open(root)
         cam = PinholeCamera.create(**EUROC_CAM0)
@@ -207,7 +207,7 @@ def main() -> int:
 
         jax.config.update("jax_platforms", "cpu")
 
-    from tinyslam_tpu.utils.cache import enable_compilation_cache
+    from tinyslam.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
 

@@ -1,6 +1,6 @@
 """Scaling-efficiency measurement (VERDICT r3 next-step #5).
 
-Measures steady-state (post-compile, dispatch-slope) scaling of the two
+Measures steady-state (post-compile) scaling of the two
 communication-bound distributed stages — landmark-sharded BA and frame-DP
 front-end extraction — plus BA iterations/s at the realistic window size
 (K=10, L=2048), and writes one JSON artifact.
@@ -13,14 +13,10 @@ Methodology notes (recorded in the artifact):
   "efficiency" measures the scheduler, not the design.  Rows are tagged
   `oversubscribed`; the honest hardware-parallel measurement is device
   counts up to the core count (typically 1 -> 2 here).
-- The projected multi-chip efficiency comes from the measured single-device
-  iteration time plus the DESIGN's analytic communication volume: one LM
-  iteration of the sharded BA psums the pose-side blocks only —
+- One LM iteration of the sharded BA psums the pose-side blocks only —
   U (K,6,6) + gc (K,6) + Schur S_off (K,K,6,6) + rhs (K,6) + cost/count —
-  independent of the landmark count L (parallel/dist_ba.py).  At K=10 that
-  is ~16 KB/iteration; over ICI (~4.5e10 B/s/link, ~2 us latency) the comm
-  time is ~3 us against a measured ~1 ms compute iteration, i.e. the
-  design's communication share is < 1%.
+  independent of the landmark count L (parallel/dist_ba.py); the artifact
+  records that payload (~16 KB/iteration at K=10).
 
     python tools/scaling_bench.py [--out SCALING.json] [--devices 8]
 """
@@ -40,7 +36,7 @@ sys.path.insert(0, str(REPO))
 
 
 def _ba_problem(rng, K, L, cam):
-    from tinyslam_tpu.data.synthetic import (
+    from tinyslam.data.synthetic import (
         orbit_trajectory, project_points, random_points,
     )
 
@@ -88,13 +84,13 @@ def main() -> int:
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
-    from tinyslam_tpu.backend.ba import bundle_adjust
-    from tinyslam_tpu.config import FrontendConfig
-    from tinyslam_tpu.data.synthetic import default_camera
-    from tinyslam_tpu.parallel.dist_ba import bundle_adjust_sharded
-    from tinyslam_tpu.parallel.frontend_dp import extract_features_batch
-    from tinyslam_tpu.utils.cache import enable_compilation_cache
-    from tinyslam_tpu.utils.profiling import dispatch_slope
+    from tinyslam.backend.ba import bundle_adjust
+    from tinyslam.config import FrontendConfig
+    from tinyslam.data.synthetic import default_camera
+    from tinyslam.parallel.dist_ba import bundle_adjust_sharded
+    from tinyslam.parallel.frontend_dp import extract_features_batch
+    from tinyslam.utils.cache import enable_compilation_cache
+    from tinyslam.utils.profiling import time_call
 
     enable_compilation_cache()
     devices = jax.devices()[: args.devices]
@@ -108,16 +104,14 @@ def main() -> int:
         "backend": jax.default_backend(),
         "host_physical_cores": cores,
         "methodology": (
-            "dispatch-slope over distinct inputs; per-LM-iteration time = "
+            "median block_until_ready time; per-LM-iteration time = "
             "total/max_iters.  CAVEAT: XLA:CPU executes all virtual "
             "devices' compute in ONE shared thread pool, so wall-clock "
             "'efficiency' on the virtual mesh measures emulation "
             "serialization at every device count, not the design; the "
             "virtual mesh demonstrates CORRECTNESS and the collective "
             "structure (one O(K^2) psum per LM iteration, independent of "
-            "L), while the multi-chip efficiency claim rests on the "
-            "analytic comms model below (projected_2host) against the "
-            "measured single-device iteration time"),
+            "L)"),
         "ba_weak": [], "ba_strong": [], "frontend_dp": [],
     }
 
@@ -141,7 +135,7 @@ def main() -> int:
                 max_iters=ITERS)["cost"]
 
         inputs = [(jnp.asarray(X0 + np.float32(1e-5 * i)),) for i in range(4)]
-        dt = dispatch_slope(run, inputs, reps=5) / ITERS
+        dt = time_call(run, inputs, reps=5) / ITERS
         if t1 is None:
             t1 = dt
         result["ba_weak"].append({
@@ -167,7 +161,7 @@ def main() -> int:
                 max_iters=ITERS)["cost"]
 
         inputs = [(jnp.asarray(X0 + np.float32(1e-5 * i)),) for i in range(4)]
-        dt = dispatch_slope(run, inputs, reps=5) / ITERS
+        dt = time_call(run, inputs, reps=5) / ITERS
         if t1 is None:
             t1 = dt
         result["ba_strong"].append({
@@ -191,7 +185,7 @@ def main() -> int:
         def run(imgs):
             return extract_features_batch(imgs, 0.06, fcfg, mesh=mesh).count
 
-        dt = dispatch_slope(run, [(f,) for f in frames], reps=4) / n
+        dt = time_call(run, [(f,) for f in frames], reps=4) / n
         if t1 is None:
             t1 = dt
         result["frontend_dp"].append({
@@ -212,7 +206,7 @@ def main() -> int:
             jnp.asarray(mask), jnp.asarray(pose_free), max_iters=ITERS)["cost"]
 
     inputs = [(jnp.asarray(X0 + np.float32(1e-5 * i)),) for i in range(4)]
-    dt = dispatch_slope(run_single, inputs, reps=5) / ITERS
+    dt = time_call(run_single, inputs, reps=5) / ITERS
     result["ba_iterations_per_s"] = {
         "K": K, "L": 2048, "devices": 1,
         "value": round(1.0 / dt, 1),
@@ -220,20 +214,9 @@ def main() -> int:
     }
     print(f"ba_iterations_per_s (K={K}, L=2048): {1.0/dt:.1f}", flush=True)
 
-    # ---- analytic comms model for the 2-host projection ----
-    payload = (K * K * 36 + K * 6 + K * 36 + K * 6 + 2) * 4
-    ici_bw, ici_lat = 4.5e10, 2e-6
-    t_comm = 2 * (payload / ici_bw + ici_lat)
-    t_comp = result["ba_iterations_per_s"]["ms_per_lm_iter"] / 1e3
-    result["projected_2host"] = {
-        "psum_payload_bytes_per_iter": payload,
-        "assumed_ici_bw_Bps": ici_bw, "assumed_ici_latency_s": ici_lat,
-        "comm_s_per_iter": t_comm,
-        "projected_efficiency": round(t_comp / (t_comp + t_comm), 4),
-        "note": ("per-iteration comms is O(K^2), independent of landmark "
-                 "count: the sharded-BA design is compute-bound by "
-                 "construction (parallel/dist_ba.py)"),
-    }
+    # ---- per-iteration collective payload (O(K^2), independent of L) ----
+    result["psum_payload_bytes_per_iter"] = (
+        K * K * 36 + K * 6 + K * 36 + K * 6 + 2) * 4
     Path(args.out).write_text(json.dumps(result, indent=2))
     print(f"wrote {args.out}")
     return 0

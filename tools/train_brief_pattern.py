@@ -19,7 +19,7 @@ the reference's constants:
      every kept bit is below a threshold, relaxing the threshold until 256
      survive.
 
-Writes tinyslam_tpu/ops/brief_pattern_learned.py (int32 literal) and
+Writes tinyslam/ops/brief_pattern_learned.py (int32 literal) and
 prints before/after bit statistics.
 
     python tools/train_brief_pattern.py [--patches 40000] [--pool 3072]
@@ -45,14 +45,14 @@ def collect_patches(n_target: int, rng: np.random.Generator) -> np.ndarray:
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from tinyslam_tpu.config import FrontendConfig
-    from tinyslam_tpu.data.synthetic import (
+    from tinyslam.config import FrontendConfig
+    from tinyslam.data.synthetic import (
         TexturedRoom, handheld_trajectory, render_sequence,
     )
-    from tinyslam_tpu.data.tum import FR1_INTRINSICS
-    from tinyslam_tpu.frontend.orb import extract_features
-    from tinyslam_tpu.geometry.camera import PinholeCamera
-    from tinyslam_tpu.ops.image import build_pyramid, rgb_to_gray
+    from tinyslam.data.tum import FR1_INTRINSICS
+    from tinyslam.frontend.orb import extract_features
+    from tinyslam.geometry.camera import PinholeCamera
+    from tinyslam.ops.image import build_pyramid, rgb_to_gray
 
     cam = PinholeCamera.create(**FR1_INTRINSICS)
     cfg = FrontendConfig()
@@ -105,7 +105,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=11)
     args = ap.parse_args()
 
-    from tinyslam_tpu.ops.brief import PATCH_RADIUS
+    from tinyslam.ops.brief import PATCH_RADIUS
 
     rng = np.random.default_rng(args.seed)
     patches = collect_patches(args.patches, rng)          # (P, 31, 31)
@@ -156,7 +156,7 @@ def main() -> int:
 
     learned = pool[sel]
     # Statistics: learned vs the shipped random pattern.
-    from tinyslam_tpu.ops.brief import BRIEF_PATTERN
+    from tinyslam.ops.brief import BRIEF_PATTERN
 
     def stats(pat, name):
         b = bits_of(pat).astype(np.float32)
@@ -172,7 +172,7 @@ def main() -> int:
     stats(np.asarray(BRIEF_PATTERN), "random (shipped)")
     stats(learned, f"learned (thresh={thresh:.2f})")
 
-    dst = REPO / "tinyslam_tpu" / "ops" / "brief_pattern_learned.py"
+    dst = REPO / "tinyslam" / "ops" / "brief_pattern_learned.py"
     rows = ",\n".join(
         "    [[%d, %d], [%d, %d]]" % (p[0, 0], p[0, 1], p[1, 0], p[1, 1])
         for p in learned)
